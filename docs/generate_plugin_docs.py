@@ -1,6 +1,6 @@
 """Generate plugin documentation (markdown) from the package sources.
 
-TPU-native counterpart of the reference's Sphinx doc generator
+JAX counterpart of the reference's Sphinx doc generator
 (/root/reference/docs/generate_plugin_doc.py + docs/exts/pluginparameters.py):
 the reference scrapes ``.. pluginparameters::`` blocks out of plugin
 docstrings into rst; here each plugin's parameter table is declared below,
@@ -165,7 +165,7 @@ def generate(out_dir: str | None = None) -> list[str]:
         by_cat.setdefault(cat, []).append((name, mod, params))
 
     index = ["# Plugin reference\n",
-             "Generated by `docs/generate_plugin_docs.py` — the TPU-native "
+             "Generated by `docs/generate_plugin_docs.py` — the JAX "
              "counterpart of the reference's plugin-doc pipeline.\n"]
     for cat, plugs in by_cat.items():
         cat_dir = os.path.join(out_dir, cat)

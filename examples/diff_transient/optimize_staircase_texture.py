@@ -7,14 +7,14 @@ triangles, bitmap-textured roughplastic walls, max_depth 65, 400 bins)
 driven through this framework's texture-gradient path: the wallpaper
 texture's atlas texels (`<bsdf>.diffuse_reflectance.data` traverse path)
 are darkened, then recovered by Adam on the L2 transient loss via
-``render_backward`` (PRB two-sweep replay; texel adjoints are dense
-one-hot-matmul VJPs, integrators/prb.py).
+``render_backward`` (PRB two-sweep replay; texel adjoints are the VJPs of
+the atlas lookups, integrators/prb.py).
 
     python examples/diff_transient/optimize_staircase_texture.py [--quick]
 
-Quick mode shrinks the film/bins/depth and drops the acceleration
-structure (brute-force intersection is faster to compile for a handful of
-tiny CI passes); the full config keeps the chunked-BVH path.
+Quick mode shrinks the film/bins/depth.  Every query tests all 262k
+triangles (there is no BVH traversal on the GPU yet), so the full config
+is slow.
 """
 import os
 import sys
@@ -49,13 +49,6 @@ def main():
     cfg = scene.sensors[0]
     scene.sensors[0] = cfg._replace(film=cfg.film._replace(
         temporal_bins=bins, start_opl=3.0, bin_width_opl=binw))
-    import jax
-
-    if args.quick and jax.default_backend() != "tpu":
-        # CPU CI: brute-force soup intersection compiles much faster than
-        # the interpreter-mode chunk cascade for a few tiny passes
-        scene.data = scene.data._replace(accel=None)
-
     params = mitr.traverse(scene)
     # optimize the wallpaper texture — the dominant visible textured surface
     # (the lampshade/painting textures get little light at shallow depths)

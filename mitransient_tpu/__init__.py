@@ -1,10 +1,10 @@
-"""mitransient_tpu — TPU-native transient light-transport rendering.
+"""mitransient_tpu — transient light-transport rendering in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 `diegoroyo/mitransient` (transient + NLOS differentiable rendering on top of
-Mitsuba 3), built TPU-first: dense wavefront path tracing under ``jit``,
-SoA scene pytrees, counter-based RNG, scatter-add transient films, PRB-style
-two-sweep differentiation, and ``shard_map`` scaling over device meshes.
+Mitsuba 3): dense wavefront path tracing under ``jit``, SoA scene pytrees,
+counter-based RNG, scatter-add transient films, PRB-style two-sweep
+differentiation, and ``shard_map`` scaling over device meshes.
 
 Unlike the reference (which refuses to import without a Mitsuba variant set,
 reference __init__.py:3-13), variants here are plain values — see
@@ -14,41 +14,17 @@ import os as _os
 
 import jax as _jax
 
-# Persistent XLA/Mosaic compilation cache: the BVH pass-loop kernels take
-# minutes to compile; caching amortizes that to once per machine.  Users can
-# override via JAX_COMPILATION_CACHE_DIR or disable with
-# MITR_NO_COMPILE_CACHE=1.
-if not _os.environ.get("MITR_NO_COMPILE_CACHE"):
-    try:
-        if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-            # Scope the cache directory by the host's CPU feature set:
-            # XLA:CPU AOT executables compiled on a machine with different
-            # ISA extensions load with a feature-mismatch warning and can
-            # SIGILL/segfault mid-run (observed round 3: a stale avx512
-            # cache from another host crashed the test suite)
-            def _cpu_tag():
-                import hashlib
+# Persistent compilation cache.  JAX reads JAX_COMPILATION_CACHE_DIR itself;
+# when it is set nothing is configured here.  Otherwise the cache lives in
+# one fixed, git-ignored directory of the checkout: the path is part of what
+# makes a later process find the entries again.
+COMPILE_CACHE_DIR = _os.path.join(
+    _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+    ".jax_cache")
 
-                try:
-                    with open("/proc/cpuinfo") as fh:
-                        for line in fh:
-                            if line.startswith("flags"):
-                                return hashlib.sha1(
-                                    line.encode()).hexdigest()[:12]
-                except OSError:
-                    pass
-                import platform
-
-                return platform.machine()
-
-            _cache = _os.path.join(
-                _os.path.expanduser("~"), ".cache", "mitransient_tpu",
-                f"jax_cache-{_cpu_tag()}")
-            _os.makedirs(_cache, exist_ok=True)
-            _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # cache is an optimization, never a hard dependency
-        pass
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from . import nlos, vis, vis_polarized  # noqa: F401
 from .log import LogLevel, log, set_log_level  # noqa: F401

@@ -1,6 +1,6 @@
 """BSDF evaluation/sampling over the compiled BSDF table.
 
-TPU-native replacement for Mitsuba's virtual ``bsdf.sample/eval/eval_pdf``
+JAX replacement for Mitsuba's virtual ``bsdf.sample/eval/eval_pdf``
 dispatch (/root/reference/mitransient/integrators/transientpath.py:208-227).
 Instead of per-lane virtual calls, every BSDF *kind* is evaluated densely for
 all lanes and the result selected by the per-lane kind code — branchless VPU

@@ -1,6 +1,6 @@
 """Polarized (Mueller-matrix) BSDF evaluation.
 
-TPU-native equivalent of the ``si.to_world_mueller``-wrapped polarized BSDF
+JAX equivalent of the ``si.to_world_mueller``-wrapped polarized BSDF
 evaluations in the reference (/root/reference/mitransient/integrators/
 transientpath.py:210,227) and the Mueller Fresnel of the gold-GGX scenes
 (/root/reference/examples/polarization).
@@ -200,9 +200,8 @@ def polarization_factor_soa(
     transmitted: jnp.ndarray | None = None,
 ) -> tuple:
     """SoA form of :func:`polarization_factor`: tuple of 16 (N, C) arrays
-    (see core/mueller.py msoa_* — avoids the rank-4 carry whose mixed TPU
-    layouts dominated the polarized render cost, round-4 HLO measurement).
-    Entries are numerically identical to the dense version."""
+    (see core/mueller.py msoa_* — avoids carrying rank-4 tensors through
+    the wavefront loop).  Entries are numerically identical to the dense version."""
     from ..core.mueller import specular_sandwich_soa
 
     n = p_in.shape[0]

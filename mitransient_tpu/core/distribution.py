@@ -4,7 +4,7 @@ Equivalent of ``mi.DiscreteDistribution`` used by the reference's
 hidden-geometry sampling (area-proportional shape selection,
 /root/reference/mitransient/integrators/transientnlospath.py:277-292).
 
-TPU-native choice: branchless binary search over the inclusive-CDF — a fixed
+Design choice: branchless binary search over the inclusive-CDF — a fixed
 ``ceil(log2(n))`` iteration loop of gathers, fully vectorized over lanes and
 friendly to XLA (static trip count, no data-dependent control flow).
 """

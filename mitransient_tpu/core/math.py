@@ -1,11 +1,12 @@
 """Small vector-math helpers over SoA ``(..., 3)`` jnp arrays.
 
 The reference stack keeps vectors as Dr.Jit ``Point3f``/``Vector3f`` wide
-arrays; on TPU we represent a wavefront of N rays as dense ``(N, 3)`` float32
-arrays so every op maps straight onto the VPU with no AoS/SoA conversion.
+arrays; here a wavefront of N rays is a dense ``(N, 3)`` float32 array, so
+every op is a plain elementwise array op with no AoS/SoA conversion.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 EPS = 1e-6
@@ -113,10 +114,10 @@ def rodrigues(w: jnp.ndarray) -> jnp.ndarray:
         jnp.stack([-wy, wx, zero], axis=-1),
     ], axis=-2)  # (..., 3, 3)
     eye = jnp.broadcast_to(jnp.eye(3, dtype=w.dtype), K.shape)
-    K2 = jnp.einsum("...ij,...jk->...ik", K, K)
+    K2 = jnp.einsum("...ij,...jk->...ik", K, K, precision=jax.lax.Precision.HIGHEST)
     return eye + a[..., None, None] * K + b[..., None, None] * K2
 
 
 def matvec3(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """Batched (..., 3, 3) @ (..., 3)."""
-    return jnp.einsum("...ij,...j->...i", m, v)
+    return jnp.einsum("...ij,...j->...i", m, v, precision=jax.lax.Precision.HIGHEST)

@@ -1,6 +1,6 @@
 """Mueller / Stokes polarization algebra (SoA jnp).
 
-TPU-native equivalent of the ``mi.mueller`` routines consumed by the
+JAX equivalent of the ``mi.mueller`` routines consumed by the
 reference: ``stokes_basis`` / ``rotate_stokes_basis`` for the sensor-aligned
 throughput init (/root/reference/mitransient/utils.py:9-21) and the implicit
 ``si.to_world_mueller`` frame rotations around every BSDF evaluation
@@ -13,6 +13,7 @@ on Stokes vectors from the left.  A polarized Spectrum here has shape
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from .math import cross, dot, normalize
@@ -90,16 +91,15 @@ def rotate_mueller_basis(
     r_out = rotate_stokes_basis(out_w, out_basis_current, out_basis_target)
     # inverse of a rotator is its transpose
     r_in_inv = jnp.swapaxes(r_in, -1, -2)
-    return r_out @ M @ r_in_inv
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(r_out, M, precision=hi), r_in_inv,
+                      precision=hi)
 
 
 def mueller_product(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Batched per-channel Mueller product ``a @ b`` for spectra of shape
-    ``(..., 4, 4, C)``, unrolled into 64 elementwise multiply-adds.
-
-    TPU note: ``einsum('...ikc,...kjc->...ijc')`` lowers to a dot_general of
-    millions of 4x4 matmuls, which the MXU executes at ~4/128 utilization —
-    measured 27x slower end-to-end than this VPU-fused form."""
+    ``(..., 4, 4, C)``, unrolled into 64 elementwise multiply-adds (exact
+    float32, and no batched 4x4 dot_general for XLA to lower)."""
     rows = []
     for i in range(4):
         cols = []
@@ -296,14 +296,10 @@ def mueller_matvec(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
 # SoA Mueller representation: tuple of 16 (..., C) arrays, row-major
 # (entry (i, j) at index 4*i + j).
 #
-# WHY: carrying (N, 4, 4, C) rank-4 tensors through the polarized wavefront
-# loop makes XLA:TPU assign MULTIPLE layouts to the same logical shape
-# (measured round 4 on the polarized cbox pass: 92 buffers
-# {0,3,2,1:T(1,128)}, 46 {0,1,3,2:T(4,128)}, 11 row-major — every domain
-# boundary is a relayout copy of a 128 MB buffer inside the loop; the cost
-# survives even when the Mueller arithmetic is stubbed out, BASELINE.md
-# "Polarized headroom").  Sixteen rank-2 (N, C) arrays are the same shape
-# class as every unpolarized carry, get one canonical layout, and fuse.
+# WHY: a compiler may give a rank-4 (N, 4, 4, C) loop carry several layouts
+# and copy between them inside the polarized wavefront loop.  Sixteen
+# rank-2 (N, C) arrays are the same shape class as every unpolarized carry,
+# get one canonical layout, and fuse.
 # ---------------------------------------------------------------------------
 
 def msoa_product(a: tuple, b: tuple) -> tuple:

@@ -1,6 +1,6 @@
 """SoA interaction / sample records (pytrees).
 
-TPU-native equivalents of Mitsuba's ``SurfaceInteraction3f`` /
+JAX equivalents of Mitsuba's ``SurfaceInteraction3f`` /
 ``DirectionSample3f`` / ``PositionSample3f`` records that the reference
 integrators carry through their wavefront loops
 (/root/reference/mitransient/integrators/transientpath.py:129,166).

@@ -1,6 +1,6 @@
 """Counter-based, stateless sample streams.
 
-TPU-native replacement for Mitsuba's ``independent`` sampler
+JAX replacement for Mitsuba's ``independent`` sampler
 (consumed by the reference via ``sampler.next_1d()/next_2d()``, e.g.
 /root/reference/mitransient/integrators/transientpath.py:193,223-224,256).
 
@@ -76,8 +76,8 @@ BOUNCE_STREAM_TAG = 0x42000000  # disambiguates bounce blocks from scalar dims
 
 def draw_bounce_block(key, it, n: int, dims: int):
     """One uniform draw for ALL of a bounce's sampler dimensions: a single
-    threefry invocation per bounce instead of ``dims`` separate ones
-    (dispatch/overhead-bound on TPU).  Deterministic in (key, it), so the
+    threefry invocation per bounce instead of ``dims`` separate ones.
+    Deterministic in (key, it), so the
     PRB replay regenerates the identical block.  Returns (n, dims)."""
     k = jax.random.fold_in(key, jnp.uint32(BOUNCE_STREAM_TAG) + it)
     return jax.random.uniform(k, (n, dims))

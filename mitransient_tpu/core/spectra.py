@@ -1,6 +1,6 @@
 """Spectral rendering support: CIE colorimetry + hero-wavelength sampling.
 
-TPU-native counterpart of the Mitsuba pieces the reference's spectral
+JAX counterpart of the Mitsuba pieces the reference's spectral
 variants rely on (SURVEY.md §2.2 "Spectral→RGB"): ``mi.sample_rgb_spectrum``
 / ``sample_shifted`` (wavelength importance sampling,
 nloscapturemeter.py:169-175) and ``mi.spectrum_to_srgb`` (splat-time
@@ -17,6 +17,7 @@ Shirley 2013; Smits' published basis; CIE D65).
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -190,7 +191,7 @@ def spectrum_to_srgb(values, wl, pdf):
     values, wl, pdf: (..., N_WL) -> (..., 3) linear sRGB."""
     w = jnp.where(pdf > 0.0, 1.0 / (jnp.maximum(pdf, 1e-12) * N_WL), 0.0)
     xyz = jnp.sum(cie_xyz(wl) * (values * w)[..., None], axis=-2) / _Y_INT
-    return xyz @ _XYZ_TO_SRGB.T
+    return jnp.matmul(xyz, _XYZ_TO_SRGB.T, precision=jax.lax.Precision.HIGHEST)
 
 
 # --------------------------------------------------------------------------

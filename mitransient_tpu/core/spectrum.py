@@ -5,7 +5,7 @@ that the reference gates on at import
 (/root/reference/mitransient/__init__.py:3-25) and branches on per-splat
 (/root/reference/mitransient/render/transient_image_block.py:90-99).
 
-TPU-native design: a *value*, not a compile flag.  A :class:`Variant` travels
+Design: a *value*, not a compile flag.  A :class:`Variant` travels
 with the compiled scene; spectra are plain jnp arrays whose trailing shape
 encodes the mode:
 

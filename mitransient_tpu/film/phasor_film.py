@@ -1,6 +1,6 @@
 """Phasor-field (frequency-domain) film.
 
-TPU-native equivalent of the reference's ``PhasorHDRFilm`` +
+JAX equivalent of the reference's ``PhasorHDRFilm`` +
 ``PhasorImageBlock`` (/root/reference/mitransient/films/phasor_hdr_film.py,
 render/phasor_image_block.py): instead of binning by time, every path
 contribution accumulates ``spec * exp(-i 2 pi f * opl)`` for a band of
@@ -10,7 +10,7 @@ Frequency selection mirrors phasor_hdr_film.py:126-139: a Morlet-style
 +-3 sigma band around ``wl_mean`` out of ``fftfreq(temporal_bins,
 bin_width_opl)``, clipped to [0, nt/2].
 
-TPU-native design: with the spp-major lane layout the pixel is the lane
+Design: with the spp-major lane layout the pixel is the lane
 index, so the accumulation is a *dense* spp-axis reduction per frequency —
 no scatters, no Pallas needed; XLA fuses the trig into the reduce.
 Monochromatic only (reference phasor_hdr_film.py:118-123); not

@@ -1,6 +1,6 @@
 """Transient film: time-binned radiance accumulation.
 
-TPU-native equivalent of the reference's ``TransientHDRFilm`` +
+JAX equivalent of the reference's ``TransientHDRFilm`` +
 ``TransientImageBlock`` pair (/root/reference/mitransient/films/
 transient_hdr_film.py, render/transient_image_block.py).
 
@@ -9,11 +9,9 @@ Design notes:
   reference's transient block supports, transient_image_block.py:150-151),
   the *pixel* of every lane is static — lanes are laid out spp-major
   (lane = s*HW + p) so a splat is a per-pixel histogram over time only.
-* The transient buffer is ``(C, T_pad, HW_pad)``: time on the sublane axis,
-  pixels on the lane axis — the layout the Pallas splat kernel
-  (ops/splat_pallas.py) wants.  Bin T is the overflow slot for out-of-range
-  samples (branchless routing instead of predication); T+1..T_pad-1 is
-  alignment padding.  ``develop`` slices and transposes back to
+* The transient buffer is ``(C, T + 1, HW)``, filled by XLA's scatter-add.
+  Bin T is the overflow slot for out-of-range samples (branchless routing
+  instead of predication).  ``develop`` slices and transposes back to
   ``(H, W, T, C)``.
 * OPL -> bin mapping mirrors transient_hdr_film.py:263-265:
   ``bin = floor((distance - start_opl) / bin_width_opl)``.
@@ -23,60 +21,22 @@ Design notes:
   (common.py:180-206) as a *dense* spp-axis reduction — no scatter at all.
 * ``temporal_filter='gaussian'`` splats into a +-3 sigma window of bins with
   normalized Gaussian weights (the transient analogue of the reference's
-  gaussian rfilter option, common.py:25-30); it currently runs on the XLA
-  scatter path.
+  gaussian rfilter option, common.py:25-30).
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 
-from ..ops.splat_pallas import PIXEL_BLOCK, round_up, splat_accumulate
 from ..scene.schema import FilmConfig
-
-_IS_TPU = None
-_FORCE_XLA_SPLAT = False  # trace-time override for AD paths (see below)
-
-
-def _on_tpu() -> bool:
-    global _IS_TPU
-    if _FORCE_XLA_SPLAT:
-        return False
-    if _IS_TPU is None:
-        try:
-            _IS_TPU = jax.default_backend() == "tpu"
-        except Exception:
-            _IS_TPU = False
-    return _IS_TPU
-
-
-class xla_splat_scope:
-    """Route transient splats through the XLA scatter path while tracing.
-
-    The Pallas splat kernel (ops/splat_pallas.py) has no AD rules, so any
-    program that differentiates THROUGH the film scatter (full-loop AD /
-    forward-mode jvp) must trace the `.at[].add` form instead — XLA's
-    scatter-add has exact built-in JVP/transpose.  Primal renders keep the
-    Pallas kernel.  The flag is read at TRACE time, so wrap the call that
-    triggers tracing of the differentiated program."""
-
-    def __enter__(self):
-        global _FORCE_XLA_SPLAT
-        self._saved = _FORCE_XLA_SPLAT
-        _FORCE_XLA_SPLAT = True
-
-    def __exit__(self, *exc):
-        global _FORCE_XLA_SPLAT
-        _FORCE_XLA_SPLAT = self._saved
 
 
 class TransientFilmState(NamedTuple):
     steady: jnp.ndarray  # (HW, C) accumulated radiance * filter weight
     steady_weight: jnp.ndarray  # (HW,) accumulated filter weight
-    transient: jnp.ndarray  # (C, T_pad, HW_pad); bin T = overflow (dropped)
+    transient: jnp.ndarray  # (C, T + 1, HW); bin T = overflow (dropped)
     # sample-validation counters (transient_image_block.py:106-125, made
     # jit-safe: dense counts instead of a data-dependent host branch)
     n_negative: jnp.ndarray = None  # () f32 — splats with a value < -1e-5
@@ -84,17 +44,17 @@ class TransientFilmState(NamedTuple):
 
 
 def t_pad_of(cfg: FilmConfig) -> int:
-    return round_up(cfg.temporal_bins + 1, 8)
+    """Time axis length of the transient buffer: T bins + the overflow bin."""
+    return cfg.temporal_bins + 1
 
 
 def film_init(cfg: FilmConfig, channels: int,
               scan_pixels: int | None = None) -> TransientFilmState:
     hw = scan_pixels if scan_pixels is not None else cfg.width * cfg.height
-    hw_pad = round_up(hw, PIXEL_BLOCK)
     return TransientFilmState(
         steady=jnp.zeros((hw, channels), jnp.float32),
         steady_weight=jnp.zeros((hw,), jnp.float32),
-        transient=jnp.zeros((channels, t_pad_of(cfg), hw_pad), jnp.float32),
+        transient=jnp.zeros((channels, t_pad_of(cfg), hw), jnp.float32),
         n_negative=jnp.zeros((), jnp.float32),
         n_invalid=jnp.zeros((), jnp.float32),
     )
@@ -141,14 +101,6 @@ def splat_transient_pair(
     else:
         bins_b, vb = None, None
 
-    if _on_tpu():
-        tr = splat_accumulate(
-            state.transient, bins_a, va, bins_b, vb, spp=spp, hw=hw,
-            n_bins=cfg.temporal_bins,
-        )
-        return state._replace(transient=tr)
-
-    # XLA scatter path (CPU/tests): same layout.
     tr = _scatter_layout(state.transient, spp, hw, bins_a, va)
     if bins_b is not None:
         tr = _scatter_layout(tr, spp, hw, bins_b, vb)
@@ -173,12 +125,6 @@ def splat_transient_flat(
     v = jnp.where(active[:, None], val, 0.0)
     if (cfg.warn_negative or cfg.warn_invalid) and state.n_negative is not None:
         state = _count_suspect(state, cfg, val, None, active)
-    if _on_tpu():
-        tr = splat_accumulate(
-            state.transient, bins, v, None, None, spp=spp, hw=hw_total,
-            n_bins=cfg.temporal_bins,
-        )
-        return state._replace(transient=tr)
     tr = _scatter_layout(state.transient, spp, hw_total, bins, v)
     return state._replace(transient=tr)
 
@@ -312,7 +258,7 @@ def splat_steady_gaussian(
 
     Scatter-free: for each of the (2r+1)^2 integer pixel offsets the whole
     wavefront's weighted contribution is a dense spp-reduction followed by a
-    statically-shifted image add — the TPU-native form of Mitsuba's
+    statically-shifted image add — the dense form of Mitsuba's
     ImageBlock border splatting."""
     import math as _m
 

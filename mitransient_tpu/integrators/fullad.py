@@ -153,19 +153,15 @@ def render_backward_fullad(scene: Scene, grad_in, spp=None, seed=0,
     spp_chunk = (spp + n_passes - 1) // n_passes
     total_spp = spp_chunk * n_passes
 
-    from ..film.transient_film import xla_splat_scope
-
     grads = None
     for p in range(n_passes):
-        with xla_splat_scope():  # AD through the film scatter needs XLA's
-            # scatter-add (the Pallas splat kernel has no AD rules)
-            g = _fullad_pass(
-                scene.data, ctx, gs, gt, jnp.uint32(seed), jnp.uint32(p),
-                jnp.float32(1.0 / total_spp),
-                film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
-                kind=kind,
-                skip_le=(kind == "transient_nlos_path" and _skip_le(scene)),
-                polarized=polarized, spectral=spectral)
+        g = _fullad_pass(
+            scene.data, ctx, gs, gt, jnp.uint32(seed), jnp.uint32(p),
+            jnp.float32(1.0 / total_spp),
+            film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
+            kind=kind,
+            skip_le=(kind == "transient_nlos_path" and _skip_le(scene)),
+            polarized=polarized, spectral=spectral)
         grads = g if grads is None else jax.tree.map(jnp.add, grads, g)
 
     from .prb import grads_to_named

@@ -1,6 +1,6 @@
 """Transient path tracer (primal sweep).
 
-TPU-native re-design of the reference's ``TransientPath`` integrator
+JAX re-design of the reference's ``TransientPath`` integrator
 (/root/reference/mitransient/integrators/transientpath.py:88-326): the same
 light-transport estimator — path tracing with next-event estimation, power
 -heuristic MIS, optical-path-length tracking and per-bounce transient
@@ -139,9 +139,8 @@ def sample_primal(
         vert = cam_vertical if cam_vertical is not None else jnp.array(
             [0.0, 1.0, 0.0])
         # SoA Mueller throughput: tuple of 16 (N, C) arrays — rank-2 like
-        # every unpolarized carry, so XLA assigns ONE layout (the rank-4
-        # (N, 4, 4, C) carry got three competing TPU layouts and relayout
-        # copies dominated the loop; see core/mueller.py msoa_* notes).
+        # every unpolarized carry, so XLA assigns ONE layout (see
+        # core/mueller.py msoa_* notes).
         # Pending-rotator carry (ported from path_regen, round 5): the
         # sensor-alignment rotator (reference utils.py:9-21) rides in the
         # pending slot, beta starts as the identity.

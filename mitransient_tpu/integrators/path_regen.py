@@ -5,14 +5,14 @@ bounce even though Russian roulette and escapes kill most paths early: by
 bounce 4 of a max_depth-8 Cornell-box render, occupancy is well under 50%.
 This variant keeps the wavefront saturated the classic GPU way — **when a
 lane's path terminates, the lane immediately starts its pixel's next spp
-sample** — expressed TPU-natively as a single `lax.while_loop` that runs
+sample** — expressed as a single `lax.while_loop` that runs
 until every lane's sample budget is exhausted.  The Python pass loop
 disappears: one launch consumes the whole spp budget.
 
 Lane layout: lane l = (row r = l // HW, pixel p = l % HW); the lane owns
 sample indices r, r + L, r + 2L, ... of pixel p (L = lanes per pixel), so
-the pixel of a lane never changes and the scatter-free film path
-(ops/splat_pallas.py) applies unchanged.
+the pixel of a lane never changes and the film splat (film/transient_film.py)
+applies unchanged.
 
 RNG: per-(sample, dimension) *stateless hashing* — `hash_uniform(key,
 sample_id, dim)` with a PCG-style mixer — because regenerating lanes need
@@ -34,7 +34,6 @@ from ..scene.scene import (
     emitter_eval_hit,
     pdf_emitter_direction,
     ray_intersect,
-    ray_intersect_and_test,
     sample_emitter_direction,
 )
 from ..scene.schema import FilmConfig, IntegratorConfig
@@ -88,10 +87,8 @@ def sample_primal_regen(
     splat_scale = jnp.float32(1.0 / spp_total)
 
     # Mono squeeze: C == 1 spectral state is carried and computed as (N,)
-    # instead of (N, 1) — TPU layouts put the trailing dim on the 128-lane
-    # axis, so (N, 1) elementwise chains waste 127 of 128 lanes and run at
-    # ~1/4 of (N,) throughput (scripts/r5_lane_layout.py: 3.8 vs 16.9
-    # G elem/s).  ``sqz`` converts (N, C) outputs of the shared BSDF /
+    # instead of (N, 1) (whether this still pays on the GPU is not
+    # measured).  ``sqz`` converts (N, C) outputs of the shared BSDF /
     # emitter kernels to the internal spectral shape, ``ch`` lifts per-lane
     # scalars/masks for spectral broadcasting, and ``pack`` restores the
     # (N, CS) film/steady channel layout at the splat boundary.
@@ -132,18 +129,6 @@ def sample_primal_regen(
     pix = (lane % hw).astype(jnp.int32)
     row = (lane // hw).astype(jnp.uint32)
 
-    # Shadow-ray pipelining (accel scenes only): bounce k's NEE visibility
-    # resolves inside bounce k+1's closest-hit query as ONE merged BVH pass
-    # loop (scene.ray_intersect_and_test) — a doubled wavefront amortizes
-    # the selection scans / sorts and packs the chunk bins denser.  The
-    # estimator is unchanged: the NEE contribution is computed
-    # pre-visibility and zeroed on occlusion one iteration later (its OPL
-    # and pixel ride along; a lane's pixel never changes, so resolution
-    # after regeneration still lands in the right film cell).  Small-scene
-    # loops keep the in-bounce ray_test — their queries are cheap and the
-    # extra carried state would tax the 100+ Mrays/s paths.
-    pipeline = sd.accel is not None
-
     def gen_ray(sample_idx):
         """Camera ray for each lane's sample ``sample_idx`` (dims 0-1)."""
         sid = sample_idx * jnp.uint32(hw) + pix.astype(jnp.uint32)
@@ -153,11 +138,12 @@ def sample_primal_regen(
         py = (pix // width).astype(jnp.float32)
         u = (px + jx) / width
         v = (py + jy) / height
-        d_cam = jnp.stack(
-            [(1.0 - 2.0 * u) * cam.tan_half[0],
-             (1.0 - 2.0 * v) * cam.tan_half[1],
-             jnp.ones_like(u)], axis=-1)
-        d = normalize(d_cam @ cam.R.T)
+        cx = (1.0 - 2.0 * u) * cam.tan_half[0]
+        cy = (1.0 - 2.0 * v) * cam.tan_half[1]
+        # camera -> world (d_cam = (cx, cy, 1)) as elementwise sums: exact
+        # float32, and no K=3 matrix product for XLA to hand to cuBLAS
+        d = normalize(cx[:, None] * cam.R[:, 0] + cy[:, None] * cam.R[:, 1]
+                      + cam.R[:, 2])
         o = jnp.broadcast_to(cam.origin, (n, 3))
         return o, d
 
@@ -182,24 +168,13 @@ def sample_primal_regen(
         film=film,
         n_rays=jnp.zeros((), jnp.float32),
         it=jnp.uint32(0),
-        **(dict(
-            sh_o=o0,
-            sh_d=d0,
-            sh_dist=jnp.zeros((n,), jnp.float32),
-            sh_valid=jnp.zeros((n,), bool),
-            nee_val=jnp.zeros((n, CS), jnp.float32),
-            nee_dist=jnp.zeros((n,), jnp.float32),
-        ) if pipeline else {}),
     )
 
     max_iters = (((spp_total + L - 1) // L) * icfg.max_depth
                  + icfg.max_depth + 1)
 
     def cond(st):
-        live = jnp.any(st["lane_live"])
-        if pipeline:  # drain the last bounce's pending shadow rays
-            live = live | jnp.any(st["sh_valid"])
-        return live & (st["it"] < max_iters)
+        return jnp.any(st["lane_live"]) & (st["it"] < max_iters)
 
     def body(st):
         active = st["path_active"] & st["lane_live"]
@@ -215,14 +190,7 @@ def sample_primal_regen(
         def rnd2(k):
             return jnp.stack([rnd1(k), rnd1(k + 1)], axis=-1)
 
-        if pipeline:
-            si, occ_prev = ray_intersect_and_test(
-                sd, Ray.make(st["o"], st["d"]), active,
-                st["sh_o"], st["sh_d"], st["sh_dist"], st["sh_valid"])
-            Lr_prev = jnp.where(
-                (st["sh_valid"] & ~occ_prev)[:, None], st["nee_val"], 0.0)
-        else:
-            si = ray_intersect(sd, Ray.make(st["o"], st["d"]), active)
+        si = ray_intersect(sd, Ray.make(st["o"], st["d"]), active)
         hit = active & si.valid
         distance = st["distance"] + jnp.where(hit, si.t, 0.0) * st["eta"]
 
@@ -256,7 +224,7 @@ def sample_primal_regen(
         cont = active & (depth + 1 < icfg.max_depth) & si.valid
         active_em = cont & bsdf_api.is_smooth(lb)
         ds, em_weight = sample_emitter_direction(sd, si.p, rnd2(0),
-                                                 not pipeline, active_em)
+                                                 True, active_em)
         active_em = active_em & (ds.pdf > 0.0)
         wo_em = si.frame.to_local(ds.d)
         f_em, pdf_bsdf_em = bsdf_api.eval_pdf(lb, si.wi, wo_em, active_em)
@@ -289,31 +257,19 @@ def sample_primal_regen(
                 active_em[:, None],
                 pack([st["beta"] * ch(mis_em) * f_em * em_weight]), 0.0)
 
-        if pipeline:
-            # this bounce's NEE becomes the pending pair; the splat pairs
-            # this bounce's emitter hit with the PREVIOUS bounce's resolved
-            # NEE (value already zero-masked for occluded/invalid lanes)
-            film_st = splat_pair_any(
-                st["film"], film_cfg, L,
-                distance, Le * splat_scale,
-                st["nee_dist"], Lr_prev * splat_scale,
-                active | st["sh_valid"],
-                icfg.temporal_filter, icfg.gaussian_stddev,
-            )
-        else:
-            film_st = splat_pair_any(
-                st["film"], film_cfg, L,
-                distance, Le * splat_scale,
-                distance + ds.dist * st["eta"], Lr_dir * splat_scale,
-                active,
-                icfg.temporal_filter, icfg.gaussian_stddev,
-            )
+        film_st = splat_pair_any(
+            st["film"], film_cfg, L,
+            distance, Le * splat_scale,
+            distance + ds.dist * st["eta"], Lr_dir * splat_scale,
+            active,
+            icfg.temporal_filter, icfg.gaussian_stddev,
+        )
 
         bs = bsdf_api.sample(lb, si.wi, rnd1(2), rnd2(3), cont)
         d_world = si.frame.to_world(bs.wo)
         new_ray = si.spawn_ray(d_world)
 
-        L_acc = st["L"] + Le + (0.0 if pipeline else Lr_dir)
+        L_acc = st["L"] + Le + Lr_dir
         if polarized:
             from ..bsdf.polarized import specular_params_soa
             from ..core.mueller import (
@@ -391,10 +347,6 @@ def sample_primal_regen(
         # lane's next sample ------------------------------------------------
         finished = active & ~cont
         steady = st["steady"] + jnp.where(finished[:, None], L_acc, 0.0)
-        if pipeline:
-            # resolved NEE goes straight to the per-lane steady accumulator
-            # (order-free row sum; the lane may already have regenerated)
-            steady = steady + Lr_prev
         next_sample = st["sample_idx"] + jnp.uint32(L)
         has_more = next_sample < jnp.uint32(spp_total)
         regen = finished & has_more
@@ -438,14 +390,6 @@ def sample_primal_regen(
             + jnp.sum(active.astype(jnp.float32))
             + jnp.sum(active_em.astype(jnp.float32)),
             it=st["it"] + 1,
-            **(dict(
-                sh_o=si.p + ds.d * 1e-4,
-                sh_d=ds.d,
-                sh_dist=ds.dist - 2e-4,
-                sh_valid=active_em,
-                nee_val=Lr_dir,
-                nee_dist=distance + ds.dist * st["eta"],
-            ) if pipeline else {}),
         )
         return out
 

@@ -1,6 +1,6 @@
 """Path Replay Backpropagation for the transient path tracer.
 
-TPU-native re-design of the reference's differential phase
+JAX re-design of the reference's differential phase
 (/root/reference/mitransient/integrators/common.py:215-409 +
 transientpath.py:259-316): **two primal-shaped sweeps, O(1) memory in path
 depth** — no taping of the wavefront loop.
@@ -17,9 +17,9 @@ locally-differentiable contribution
 radiance at the vertex's time bin (``gather_derivatives_at_distance``,
 transient_hdr_film.py:161-171 -> transientpath.py:309-311) and accumulates
 ``d<deltaL_read, Lo>/d theta`` into dense parameter-table gradients via
-``jax.grad`` of the per-bounce scalar.  Because table rows are fetched with
-one-hot matmuls (ops/gather.py), the parameter VJP is itself a dense matmul
-(``onehot^T @ g``) — no scatters in the backward pass either.
+``jax.grad`` of the per-bounce scalar.  Table rows are fetched by plain
+indexing (ops/gather.py), so the parameter VJP is XLA's scatter-add of the
+per-lane cotangents into the table rows.
 
 Matching the reference's semantics exactly:
 * the adjoint is read once per vertex at ``bin(distance)`` and pairs the

@@ -1,6 +1,6 @@
 """Transient volumetric path tracer (``transient_prbvolpath`` parity).
 
-TPU-native re-design of the reference's volumetric PRB integrator
+JAX re-design of the reference's volumetric PRB integrator
 (/root/reference/mitransient/integrators/transient_prbvolpath.py): transient
 path tracing through homogeneous participating media bounded by null-BSDF
 shapes, with analytic free-flight sampling, Henyey–Greenstein phase
@@ -10,7 +10,7 @@ medium and surface events.
 Correspondences (reference line -> here):
 * free-flight sampling + real/null event classification (:186-239) — for
   homogeneous media the delta-tracking loop collapses to the closed-form
-  exponential sample, a TPU-friendly single step
+  exponential sample, a branch-free single step
 * distance += mei.t * eta at medium scatters (:229), si.t * eta at
   surfaces (:258)
 * transient splats at emitter hits (:282-283) and NEE (:329-331)
@@ -102,7 +102,8 @@ def _density(sd: SceneData, med_id, p):
     Homogeneous media (constant-1 grids) return 1."""
     m = jnp.maximum(med_id, 0)
     w2l = sd.medium.grid_w2l[m]  # (N, 3, 4); M is tiny so gather is cheap
-    local = jnp.einsum("nij,nj->ni", w2l[:, :, :3], p) + w2l[:, :, 3]
+    local = jnp.einsum("nij,nj->ni", w2l[:, :, :3], p,
+                       precision=jax.lax.Precision.HIGHEST) + w2l[:, :, 3]
     grid = sd.medium.grid
     gz, gy, gx = grid.shape[1:]
     # local (x, y, z) in [0,1] -> voxel coords

@@ -115,7 +115,7 @@ def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
     (bbox_min/bbox_max (N,3), left/right/count (N,), prim_order (M,)).
 
     ``method``: "sah" (binned surface-area heuristic, default — tighter
-    subtree bounds, which is what the chunked TPU traversal pays for) or
+    subtree bounds, fewer nodes visited per ray) or
     "median" (centroid median split).  Falls back to a Python median-split
     builder when the native library is unavailable."""
     m = v0.shape[0]

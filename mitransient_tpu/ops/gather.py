@@ -1,71 +1,10 @@
-"""Table lookups tuned per backend.
-
-XLA's general gather on TPU costs ~8.5 ms per 2M-lane lookup even from a
-36-row table (measured, v5e).  For the small tables a renderer actually has
-— triangle attributes, BSDF/emitter parameter rows — a one-hot matmul
-(``(idx == iota) @ table``) is 25x faster and exact (products are value*0/1,
-sums add a single nonzero).  On CPU the native gather wins.  All hot-path
-row lookups go through :func:`table_lookup`.
-"""
+"""Row lookups of several per-primitive / per-material columns by one index."""
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-
-# Above this row count the one-hot's O(N*M) work overtakes the gather.
-ONEHOT_MAX_ROWS = 128
-
-_IS_TPU = None
-
-
-def _on_tpu() -> bool:
-    global _IS_TPU
-    if _IS_TPU is None:
-        try:
-            _IS_TPU = jax.default_backend() == "tpu"
-        except Exception:
-            _IS_TPU = False
-    return _IS_TPU
-
-
-def one_hot_f32(idx: jnp.ndarray, rows: int) -> jnp.ndarray:
-    """(N,) int32 -> (N, rows) f32 one-hot (clamped indices select nothing
-    extra; negative indices select nothing)."""
-    return (idx[:, None] == jnp.arange(rows, dtype=idx.dtype)[None, :]).astype(
-        jnp.float32
-    )
-
-
-def table_lookup(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Row lookup ``table[idx]`` for a 2-D (M, K) float table, batched over a
-    1-D index array.  One-hot matmul on TPU for small M, gather otherwise."""
-    m = table.shape[0]
-    if _on_tpu() and m <= ONEHOT_MAX_ROWS:
-        return one_hot_f32(idx, m) @ table
-    return table[idx]
 
 
 def columns_lookup(tables: dict, idx: jnp.ndarray) -> dict:
-    """Look up several 1-D/2-D f32 columns by the same index with ONE one-hot
-    (or native gathers on CPU).  ``tables``: name -> (M,) or (M, K) f32
-    arrays.  Returns name -> (N,) or (N, K)."""
-    names = list(tables)
-    m = tables[names[0]].shape[0]
-    if not (_on_tpu() and m <= ONEHOT_MAX_ROWS):
-        return {k: tables[k][idx] for k in names}
-    cols = []
-    slices = []
-    off = 0
-    for k in names:
-        a = tables[k]
-        a2 = a[:, None] if a.ndim == 1 else a
-        cols.append(a2.astype(jnp.float32))
-        slices.append((off, off + a2.shape[1], a.ndim == 1))
-        off += a2.shape[1]
-    packed = jnp.concatenate(cols, axis=1)  # (M, K_total)
-    out = one_hot_f32(idx, m) @ packed  # (N, K_total)
-    res = {}
-    for k, (lo, hi, was_1d) in zip(names, slices):
-        v = out[:, lo:hi]
-        res[k] = v[:, 0] if was_1d else v
-    return res
+    """Look up several columns by the same index.  ``tables``: name -> (M,)
+    or (M, K) arrays.  Returns name -> (N,) or (N, K)."""
+    return {k: v[idx] for k, v in tables.items()}

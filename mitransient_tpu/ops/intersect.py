@@ -1,20 +1,19 @@
 """Ray / triangle-soup intersection ops.
 
-TPU-native replacement for the Embree/OptiX ``scene.ray_intersect`` /
-``ray_test`` calls in the reference (/root/reference/mitransient/integrators/
-transientpath.py:149, transientnlospath.py:747).
+Replacement for the Embree/OptiX ``scene.ray_intersect`` / ``ray_test``
+calls in the reference (mitransient/integrators/transientpath.py:149,
+transientnlospath.py:747).
 
 Design: the canonical transient scenes are *small* in triangle count (cornell
 box ~ 36 tris, NLOS Z ~ tens) but *huge* in ray count (W*H*spp up to 2^32
-lanes, common.py:48).  On TPU the right shape for that regime is a dense
-all-rays x triangle-chunk sweep: a branchless Moller-Trumbore evaluated for a
-(lane, tri-chunk) tile with a running min-t reduction — regular, fully
-vectorized VPU work with no divergence, no BVH pointer chasing.  A
-``lax.scan`` over triangle chunks keeps peak memory at O(N * CHUNK).  The
-same op has a Pallas-kernel variant (ops/intersect_pallas.py) used on TPU for
-large meshes; this jnp version is the reference implementation and the CPU
-test path.  (An LBVH path for big scenes is planned; see SURVEY.md section 7
-stage 2.)
+lanes, common.py:48).  The right shape for that regime is a dense
+all-rays x all-triangles sweep: a branchless Moller-Trumbore with a running
+min-t reduction, regular work with no divergence and no BVH pointer chasing.
+The jnp sweeps below run a ``lax.scan`` over triangle chunks, which keeps
+peak memory at O(N * CHUNK); they are the reference implementation and the
+CPU path.  On CUDA :func:`closest_hit` and :func:`ray_test` run the fused
+Pallas kernels of ``ops/intersect_triton.py`` instead.  Large meshes use the
+same sweep (correct, O(N * M)); a GPU BVH traversal is future work.
 """
 from __future__ import annotations
 
@@ -26,61 +25,32 @@ import jax.numpy as jnp
 DEFAULT_TRI_CHUNK = 32
 RAY_EPS = 1e-4
 
-_BACKEND_IS_TPU = None
+
+def closest_hit(v0, e1, e2, ray_o, ray_d, maxt, active):
+    """Closest-hit query returning only (t, prim); callers rebuild the
+    shading record from the triangle tables (scene.ray_intersect).
+
+    The one backend dispatch of the query: chosen when the program is
+    lowered, the Triton-route kernel on CUDA and the jnp sweep elsewhere."""
+    from .intersect_triton import closest_hit_triton
+
+    def soup(*args):
+        t, prim, _u, _v = intersect_soup(*args)
+        return t, prim
+
+    return jax.lax.platform_dependent(
+        v0, e1, e2, ray_o, ray_d, maxt, active,
+        cuda=closest_hit_triton, default=soup)
 
 
-def _use_pallas() -> bool:
-    """Route the hot queries to the Pallas kernels on TPU; the jnp path below
-    remains the reference implementation and the CPU/test path."""
-    global _BACKEND_IS_TPU
-    if _BACKEND_IS_TPU is None:
-        try:
-            _BACKEND_IS_TPU = jax.default_backend() == "tpu"
-        except Exception:
-            _BACKEND_IS_TPU = False
-    return _BACKEND_IS_TPU
+def ray_test(v0, e1, e2, ray_o, ray_d, maxt, active):
+    """Any-hit (shadow ray) query -> (N,) bool occluded; dispatched like
+    :func:`closest_hit`."""
+    from .intersect_triton import ray_test_triton
 
-
-def intersect(v0, e1, e2, ray_o, ray_d, maxt, active):
-    """Backend-dispatching closest-hit query (with barycentrics)."""
-    if _use_pallas():
-        from .intersect_pallas import intersect_soup_pallas
-
-        return intersect_soup_pallas(v0, e1, e2, ray_o, ray_d, maxt, active)
-    return intersect_soup(v0, e1, e2, ray_o, ray_d, maxt, active)
-
-
-def closest_hit(v0, e1, e2, ray_o, ray_d, maxt, active, accel=None):
-    """Backend-dispatching closest-hit returning only (t, prim).
-
-    The hot path: callers that reconstruct barycentrics themselves (via the
-    one-hot attribute lookup in scene.ray_intersect) use this to skip the
-    gather-based post-processing entirely.  When the scene carries an accel
-    structure (built for > ``accel.ACCEL_MIN_TRIS`` triangles) and we're on
-    TPU, the chunked binned-sweep kernels take over."""
-    if _use_pallas():
-        if accel is not None:
-            from .bvh_pallas import closest_hit_bvh
-
-            return closest_hit_bvh(accel, ray_o, ray_d, maxt, active)
-        from .intersect_pallas import closest_hit_pallas
-
-        return closest_hit_pallas(v0, e1, e2, ray_o, ray_d, maxt, active)
-    t, prim, _u, _v = intersect_soup(v0, e1, e2, ray_o, ray_d, maxt, active)
-    return t, prim
-
-
-def ray_test(v0, e1, e2, ray_o, ray_d, maxt, active, accel=None):
-    """Backend-dispatching any-hit query."""
-    if _use_pallas():
-        if accel is not None:
-            from .bvh_pallas import ray_test_bvh
-
-            return ray_test_bvh(accel, ray_o, ray_d, maxt, active)
-        from .intersect_pallas import ray_test_soup_pallas
-
-        return ray_test_soup_pallas(v0, e1, e2, ray_o, ray_d, maxt, active)
-    return ray_test_soup(v0, e1, e2, ray_o, ray_d, maxt, active)
+    return jax.lax.platform_dependent(
+        v0, e1, e2, ray_o, ray_d, maxt, active,
+        cuda=ray_test_triton, default=ray_test_soup)
 
 
 def _pad_tris(v0, e1, e2, chunk):

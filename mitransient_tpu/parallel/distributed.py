@@ -1,11 +1,10 @@
 """Multi-host (multi-process) SPMD support.
 
 The reference is strictly single-process (SURVEY.md section 2.3): its only
-parallelism is one Dr.Jit megakernel.  The TPU-native north star is a
-multi-host renderer — spp sharded over every chip of every host, scene
-replicated, film partials and parameter gradients ``psum``-all-reduced over
-ICI within a host and DCN across hosts.  JAX's collectives make the two
-cases the same program: :func:`init_distributed` wires the processes
+parallelism is one Dr.Jit megakernel.  Here a render can span hosts — spp
+sharded over every device of every host, scene replicated, film partials
+and parameter gradients ``psum``-all-reduced within and across hosts.
+JAX's collectives make the two cases the same program: :func:`init_distributed` wires the processes
 together, :func:`global_mesh` spans all hosts' devices, and the sharded
 render/backward entry points in ``parallel.mesh`` run unchanged.
 
@@ -14,8 +13,8 @@ index (``stream = pass * n_devices + axis_index``), so a render over N
 devices produces bit-identical films whether those N devices live in one
 process or many (tested by tests/test_multihost.py).
 
-On CPU (tests / this environment) cross-process collectives use the gloo
-backend; on TPU pods jax.distributed discovers the topology natively.
+On CPU (tests) cross-process collectives use the gloo backend; on GPUs
+XLA's collectives go through NCCL.
 """
 from __future__ import annotations
 
@@ -32,9 +31,9 @@ def init_distributed(
 ) -> None:
     """Initialize the multi-process runtime (idempotent).
 
-    On TPU pods call with no arguments — the topology is discovered from the
-    environment.  For multi-process CPU runs (tests, this environment) pass
-    the coordinator address and process ids explicitly;
+    Pass the coordinator address (``host:port``), the process count and
+    this process's id explicitly; with no arguments JAX must find a cluster
+    description in the environment.  For multi-process CPU runs (tests)
     ``local_device_count`` forces N virtual CPU devices per process and
     selects the gloo collectives backend.
     """
@@ -59,7 +58,7 @@ def init_distributed(
 
 def global_mesh(name: str = "shard") -> Mesh:
     """1-D mesh over every device of every process, in global device order
-    (the spp data-parallel axis; ICI within a host, DCN across hosts)."""
+    (the spp data-parallel axis, within and across hosts)."""
     return Mesh(np.asarray(jax.devices()), (name,))
 
 
@@ -68,7 +67,7 @@ def replicate(tree, mesh: Mesh):
 
     In multi-process SPMD, jit inputs must be global arrays; every process
     holds the same host value (scene tables, camera, seeds), so replication
-    is a local device_put — no data moves over DCN.
+    is a local device_put — no data moves between hosts.
     """
     s = NamedSharding(mesh, P())
     return jax.tree.map(lambda x: jax.device_put(x, s), tree)

@@ -1,13 +1,14 @@
-"""Multi-chip / multi-host SPMD rendering over a jax.sharding.Mesh.
+"""Multi-device / multi-host SPMD rendering over a jax.sharding.Mesh.
 
 The reference has no multi-device code at all (SURVEY.md section 2.3): its
-parallelism is one Dr.Jit megakernel on one device.  The TPU-native design
-generalizes the wavefront: the **spp axis is the data-parallel axis**.  Every
-chip renders the full scan with an independent counter-based sample stream
+parallelism is one Dr.Jit megakernel on one device.  Here the wavefront
+generalizes: the **spp axis is the data-parallel axis**.  Every
+device renders the full scan with an independent counter-based sample stream
 (stream id = pass * n_devices + global_device_index), producing a private
 transient film partial; partials, ray counters and parameter gradients are
-``psum``-all-reduced — over ICI within a host, DCN across hosts (the mesh
-may span processes; see parallel.distributed).  Scene geometry / BSDF /
+``psum``-all-reduced (the mesh may span processes; see
+parallel.distributed).  The mesh is 1-D: every card of a host reaches every
+other at the same rate, so no axis layout is better than another.  Scene geometry / BSDF /
 emitter / NLOS-context tables are replicated — they are tiny next to the
 wavefront state.  This is the distributed equivalent of the reference's
 sequential pass splitting (common.py:51-85): passes become (device, pass)
@@ -177,7 +178,7 @@ def render_sharded(
                 jit2, stddev=film_cfg.rfilter_stddev)
         else:
             film = splat_steady(film, chunk, L, ray_weight)
-        # all-reduce partials: ICI within a host, DCN across hosts
+        # all-reduce the film partials over the mesh
         film = jax.tree.map(lambda x: jax.lax.psum(x, "shard"), film)
         n_rays = jax.lax.psum(n_rays, "shard")
         return film, n_rays
@@ -294,9 +295,8 @@ def render_nlos_exhaustive_sharded(
         lambda a: a.reshape((ndev, Ld) + a.shape[1:]), lasers)
 
     from ..film.transient_film import TransientFilmState, t_pad_of
-    from ..ops.splat_pallas import PIXEL_BLOCK, round_up
 
-    slab_stride = round_up(Ld * hw, PIXEL_BLOCK)
+    slab_stride = Ld * hw
     T_pad = t_pad_of(film_cfg)
 
     @partial(
@@ -573,10 +573,7 @@ def render_backward_sharded(
 
         sd, ctx, gs, gt_full = replicate(
             (scene.data, ctx, gs, gt_full), mesh)
-        from ..film.transient_film import xla_splat_scope
-
-        with xla_splat_scope():  # AD through the film scatter (see fullad)
-            grads = jax.jit(step)(sd, ctx, gs, gt_full, jnp.uint32(seed))
+        grads = jax.jit(step)(sd, ctx, gs, gt_full, jnp.uint32(seed))
         return _grads_to_paths(scene, grads)
 
     # --- transient_path: PRB two-sweep replay per device -------------------

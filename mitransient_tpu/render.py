@@ -160,7 +160,7 @@ def render(
 
     # Path-regeneration fast path: single while_loop consuming the whole spp
     # budget at ~full occupancy (integrators/path_regen.py).  Used for plain
-    # primal transient_path renders on TPU-scale workloads.
+    # primal transient_path renders.
     polarized_v = scene.variant.polarized
     if regenerate is None:
         regenerate = (
@@ -697,34 +697,31 @@ def render_forward(scene: Scene, tangent: dict, spp: int | None = None,
         kind = icfg.kind
         skip_le = False
 
-    from .film.transient_film import xla_splat_scope
+    # accumulate (primal, tangent) film STATES over spp chunks, then
+    # differentiate the develop step once at the accumulated state —
+    # exactly the jvp of the whole multi-pass program (film states are
+    # additive; filter weights carry zero tangent)
+    s_tot = t_tot = None
+    for p in range(n_passes):
+        s_p, t_p = _forward_pass_jvp(
+            scene.data, ctx, tangents, jnp.uint32(seed), jnp.uint32(p),
+            jnp.float32(1.0 / total_spp),
+            film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
+            kind=kind, skip_le=skip_le,
+            polarized=scene.variant.polarized,
+            spectral=scene.variant.spectral)
+        if s_tot is None:
+            s_tot, t_tot = s_p, t_p
+        else:
+            s_tot = jax.tree_util.tree_map(jnp.add, s_tot, s_p)
+            t_tot = jax.tree_util.tree_map(jnp.add, t_tot, t_p)
+    from .film.transient_film import develop_any as _dev
 
-    with xla_splat_scope():  # jvp through the film scatter (no Pallas AD)
-        # accumulate (primal, tangent) film STATES over spp chunks, then
-        # differentiate the develop step once at the accumulated state —
-        # exactly the jvp of the whole multi-pass program (film states are
-        # additive; filter weights carry zero tangent)
-        s_tot = t_tot = None
-        for p in range(n_passes):
-            s_p, t_p = _forward_pass_jvp(
-                scene.data, ctx, tangents, jnp.uint32(seed), jnp.uint32(p),
-                jnp.float32(1.0 / total_spp),
-                film_cfg=film_cfg, icfg=icfg, spp=spp_chunk, hw=hw,
-                kind=kind, skip_le=skip_le,
-                polarized=scene.variant.polarized,
-                spectral=scene.variant.spectral)
-            if s_tot is None:
-                s_tot, t_tot = s_p, t_p
-            else:
-                s_tot = jax.tree_util.tree_map(jnp.add, s_tot, s_p)
-                t_tot = jax.tree_util.tree_map(jnp.add, t_tot, t_p)
-        from .film.transient_film import develop_any as _dev
-
-        _out, d_out = jax.jvp(
-            lambda s: _dev(s, film_cfg,
-                           shape_hw=(film_cfg.height, film_cfg.width)),
-            (s_tot,), (t_tot,))
-        return d_out
+    _out, d_out = jax.jvp(
+        lambda s: _dev(s, film_cfg,
+                       shape_hw=(film_cfg.height, film_cfg.width)),
+        (s_tot,), (t_tot,))
+    return d_out
 
 
 @partial(jax.jit, static_argnames=("width", "height", "spp", "channels"))

@@ -1,6 +1,6 @@
 """Compiled scene representation + device-side scene queries.
 
-This module is the TPU-native stand-in for the Mitsuba ``mi.Scene`` API
+This module is the JAX stand-in for the Mitsuba ``mi.Scene`` API
 surface the reference consumes (SURVEY.md section 2.2): ``ray_intersect``,
 ``ray_test``, ``sample_emitter_direction``, ``pdf_emitter_direction``,
 ``eval_emitter_direction`` plus emitter evaluation at surface hits.
@@ -174,12 +174,6 @@ class SceneData(NamedTuple):
     bsdf: BSDFParams
     emitter: EmitterParams
     medium: MediumParams
-    # Chunked acceleration structure (ops/accel.py) for scenes beyond the
-    # single-level sweep's SMEM cap; None for small scenes.  Derived data:
-    # NOT differentiated (hit distances re-attach through the plane-equation
-    # reconstruction in ray_intersect, matching the reference's attached
-    # ray_intersect inside dr.resume_grad, transientpath.py:148-151).
-    accel: object = None
     # Differentiable per-shape rigid deltas (None disables the attach path)
     geom: GeomParams | None = None
 
@@ -276,7 +270,7 @@ class GeomDelta(NamedTuple):
     the same without pivot/translation.  At zero deltas every term is
     EXACTLY zero (no pivot round-trip, no 3x3 matrices), so the attach
     changes no primal bit and costs two cross products per vector —
-    TPU-friendly elementwise math instead of batched tiny matmuls."""
+    elementwise math instead of batched tiny matmuls."""
 
     w: jnp.ndarray  # (N, 3) axis-angle
     a: jnp.ndarray  # (N,) sin(t)/t
@@ -335,60 +329,22 @@ def ray_intersect(sd: SceneData, ray: Ray, active: jnp.ndarray) -> SurfaceIntera
     the (delta-transformed) triangle tables, so d(hit)/d(shape pose) and
     d(hit)/d(ray) flow under ``jax.grad``.
 
-    TPU note: all per-hit attributes come from ONE packed one-hot lookup over
-    the triangle table (ops/gather.py) and the barycentrics are reconstructed
-    from the hit point — no XLA gathers anywhere on the hot path."""
-    # The traversal kernel produces a detached discrete choice (prim) and a
-    # raw primal t; derivatives re-enter via the plane-equation attach
-    # below.  Detaching the kernel INPUTS is required on TPU: the Pallas
-    # traversal kernels define no AD rules, and under jax.grad/jvp the ray
-    # origin/direction are attached through sampled BSDF lobes (alpha), so
-    # an undetached call fails to linearize (observed on-device, round 4).
+    The barycentrics are reconstructed from the hit point."""
+    # The traversal produces a detached discrete choice (prim) and a raw
+    # primal t; derivatives re-enter via the plane-equation attach below.
+    # The query's INPUTS are detached: the GPU intersection kernel defines
+    # no AD rule, and under jax.grad/jvp the ray origin/direction are
+    # attached through sampled BSDF lobes (alpha).
     sg = jax.lax.stop_gradient
     t, prim = _closest_hit_q(
         sd.tri.v0, sd.tri.e1, sd.tri.e2, sg(ray.o), sg(ray.d), sg(ray.maxt),
-        active, accel=sd.accel,
+        active,
     )
     return _si_from_t_prim(sd, ray, t, prim)
 
 
-def ray_intersect_and_test(sd: SceneData, ray: Ray, active,
-                           sh_o, sh_d, sh_dist, sh_active):
-    """Fused closest-hit + shadow-occlusion query.
-
-    On TPU accel scenes both ray sets share ONE binned-pass loop
-    (ops/bvh_pallas.mixed_query_bvh): a doubled wavefront amortizes the
-    selection scans / sorts / cascade and packs the per-tile chunk bins
-    denser — the integrators pipeline bounce k's shadow rays into bounce
-    k+1's next-ray query (path_regen.py).  Elsewhere it is exactly
-    ``(ray_intersect(...), ray_test(...))``; both halves match those
-    single-query semantics bit-for-bit (same kernels, same epsilons).
-
-    Returns ``(si, occluded)``.
-    """
-    from ..ops.intersect import _use_pallas
-
-    if _use_pallas() and sd.accel is not None:
-        from ..ops.bvh_pallas import mixed_query_bvh
-
-        sg = jax.lax.stop_gradient
-        n1 = ray.o.shape[0]
-        maxt_sh = sh_dist * (1.0 - 1e-3)  # ray_test epsilon shortening
-        o = jnp.concatenate([sg(ray.o), sg(sh_o)])
-        d = jnp.concatenate([sg(ray.d), sg(sh_d)])
-        maxt = jnp.concatenate([sg(ray.maxt), sg(maxt_sh)])
-        act = jnp.concatenate([active, sh_active])
-        t, prim = mixed_query_bvh(sd.accel, o, d, maxt, act, n_closest=n1)
-        si = _si_from_t_prim(sd, ray, t[:n1], prim[:n1])
-        return si, prim[n1:] >= 0
-    si = ray_intersect(sd, ray, active)
-    occluded = ray_test(sd, sh_o, sh_d, sh_dist, sh_active)
-    return si, occluded
-
-
 def _si_from_t_prim(sd: SceneData, ray: Ray, t, prim) -> SurfaceInteraction:
-    """Shading-record construction from a traversal result (t, prim) —
-    shared tail of ray_intersect / ray_intersect_and_test."""
+    """Shading-record construction from a traversal result (t, prim)."""
     valid = prim >= 0
     prim_c = jnp.maximum(prim, 0)
     cols = columns_lookup(
@@ -479,12 +435,12 @@ def ray_test(sd: SceneData, o: jnp.ndarray, d_unit: jnp.ndarray, dist: jnp.ndarr
     with epsilon shortening at both ends; cf. ``mi.Scene.ray_test``.
 
     Visibility is a detached binary decision (the reference likewise never
-    differentiates ray_test); detaching the inputs also lets the Pallas
-    any-hit kernel (no AD rules) sit under jax.grad/jvp on TPU."""
+    differentiates ray_test); detaching the inputs also lets the GPU
+    any-hit kernel (no AD rule) sit under jax.grad/jvp."""
     sg = jax.lax.stop_gradient
     maxt = dist * (1.0 - 1e-3)
     return _ray_test_q(sd.tri.v0, sd.tri.e1, sd.tri.e2, sg(o), sg(d_unit),
-                       sg(maxt), active, accel=sd.accel)
+                       sg(maxt), active)
 
 
 # ---- emitters -------------------------------------------------------------
@@ -493,7 +449,7 @@ def _sample_emitter_triangle(sd: SceneData, em_idx: jnp.ndarray, u: jnp.ndarray)
     """Pick a triangle of emitter ``em_idx`` area-proportionally via the
     per-emitter CDF segment; returns (soup tri index, rescaled u).
 
-    TPU-native: the inverse-CDF search is a vectorized compare-and-count over
+    Design: the inverse-CDF search is a vectorized compare-and-count over
     the (small) flattened emitter-triangle table — branchless, gather-free —
     rather than a binary search (cf. mi.DiscreteDistribution used at
     transientnlospath.py:277-292)."""
@@ -527,8 +483,7 @@ def _uniform_triangle_point(sd: SceneData, tri: jnp.ndarray,
                             u2: jnp.ndarray):
     """Uniform barycentric sample of emitter-triangle ``slot`` (soup index
     ``tri``).  Gathers from the compact (K-row) per-emitter table when the
-    scene compiled one — the full soup lookup costs an (N, M) one-hot matmul
-    that dwarfs the K emitter rows."""
+    scene compiled one, else from the full soup."""
     su = jnp.sqrt(jnp.maximum(u1, 0.0))
     b1 = 1.0 - su
     b2 = u2 * su

@@ -1,6 +1,6 @@
 """Scene description: dict schema -> compiled SceneData.
 
-TPU-native replacement for ``mi.load_dict`` + the Mitsuba plugin registry +
+JAX replacement for ``mi.load_dict`` + the Mitsuba plugin registry +
 ``mi.traverse`` parameter system (SURVEY.md section 2.2 'Scene description'
 and 'Parameter traversal').  The accepted dict schema intentionally matches
 the reference's scene dicts (e.g. /root/reference/mitransient/utils.py:78-220
@@ -25,7 +25,6 @@ import numpy as np
 
 from ..core.spectrum import Variant, variant
 from ..core.transform import Transform4, from_spec
-from ..ops.accel import ACCEL_MIN_TRIS as _ACCEL_MIN_TRIS
 from .scene import (
     BSDF_ROUGH_PLASTIC,
     BSDF_CONDUCTOR,
@@ -1213,12 +1212,6 @@ class Scene:
             majorant=maj_arr,
         )
 
-        accel = None
-        if count > _ACCEL_MIN_TRIS:
-            from ..ops.accel import build_accel
-
-            accel = build_accel(v0, e1, e2)
-
         # Differentiable per-shape rigid deltas (zeros; scene.GeomParams).
         # Pivot = each shape's to_world origin, so the `.to_world.rotate`
         # gradient is about the object's own frame like composing a rotation
@@ -1241,7 +1234,7 @@ class Scene:
                 "shape.rotate", s_i)
 
         self.data = SceneData(tri=tri, bsdf=bsdf, emitter=emitter,
-                              medium=medium, accel=accel, geom=geom)
+                              medium=medium, geom=geom)
 
     # ------------------------------------------------------------------
     def emitter_index(self, key_or_idx) -> int:
@@ -1433,7 +1426,7 @@ class ParamMap:
                 self.scene._nlos_ctx_cache = None
         if rebake:
             # geometry moved: re-bake the triangle soup, emitter tables,
-            # pivots and acceleration structure host-side (the geom deltas
+            # and pivots host-side (the geom deltas
             # in SceneData stay zero — they are pure gradient carriers)
             self.scene._compile()
             # _compile rebuilt SceneData from the host objects; re-apply

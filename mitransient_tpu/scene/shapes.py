@@ -1,8 +1,8 @@
 """Host-side shape plugins that compile to world-space triangle soup.
 
 The reference delegates shapes (rectangle/cube/obj/ply + UV position
-sampling) to Mitsuba's C++ plugins (see SURVEY.md section 2.2).  TPU-native
-design: *everything is triangles*.  Scene build tessellates every shape into
+sampling) to Mitsuba's C++ plugins (see SURVEY.md section 2.2).  Design:
+*everything is triangles*.  Scene build tessellates every shape into
 a flat SoA triangle soup in world space (numpy, host side); on device the
 renderer only ever sees dense triangle arrays, which keeps intersection a
 regular, compiler-friendly computation.

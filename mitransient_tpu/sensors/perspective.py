@@ -1,6 +1,6 @@
 """Pinhole perspective camera ray generation.
 
-TPU-native equivalent of Mitsuba's ``perspective`` sensor +
+JAX equivalent of Mitsuba's ``perspective`` sensor +
 ``ADIntegrator.sample_rays`` film-position sampling consumed by the reference
 (mitransient/integrators/common.py:159).  Conventions: camera looks along its
 local +z (Mitsuba ``look_at``), film u grows right / v grows down, pixel
@@ -84,15 +84,12 @@ def sample_rays(
     u = (px + jitter[:, 0]) / fw
     v = (py + jitter[:, 1]) / fh
 
-    d_cam = jnp.stack(
-        [
-            (1.0 - 2.0 * u) * cam.tan_half[0],
-            (1.0 - 2.0 * v) * cam.tan_half[1],
-            jnp.ones_like(u),
-        ],
-        axis=-1,
-    )
-    d_world = normalize(d_cam @ cam.R.T)
+    cx = (1.0 - 2.0 * u) * cam.tan_half[0]
+    cy = (1.0 - 2.0 * v) * cam.tan_half[1]
+    # camera -> world (d_cam = (cx, cy, 1)) as elementwise sums: exact
+    # float32, and no K=3 matrix product for XLA to hand to cuBLAS
+    d_world = normalize(cx[:, None] * cam.R[:, 0] + cy[:, None] * cam.R[:, 1]
+                        + cam.R[:, 2])
     o = jnp.broadcast_to(cam.origin, (n, 3))
     ray = Ray.make(o, d_world)
     return ray, pix, jnp.ones((n,), jnp.float32)

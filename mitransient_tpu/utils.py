@@ -124,3 +124,61 @@ def cornell_box():
             "bsdf": {"type": "ref", "id": "white"},
         },
     }
+
+
+def nlos_scene(sx=4, sy=4, laser_sampling=True, hg_sampling=True,
+               account=False, bins=300, spp=64):
+    """Canonical NLOS scene dict (the nlos-z-simple.xml pattern): a relay
+    wall ``[-1,1]^2`` at z=0 carrying an ``sx`` x ``sy`` nlos_capture_meter,
+    a projector laser at ``(-0.5, 0, 0.25)`` and a hidden unit rectangle
+    at z=1 facing the wall; ``bins`` bins of 0.02 OPL,
+    ``transient_nlos_path`` at max_depth 4."""
+    return {
+        "type": "scene",
+        "integrator": {
+            "type": "transient_nlos_path",
+            "max_depth": 4,
+            "filter_depth": -1,
+            "nlos_laser_sampling": laser_sampling,
+            "nlos_hidden_geometry_sampling": hg_sampling,
+            "nlos_hidden_geometry_sampling_do_rroulette": False,
+            "nlos_hidden_geometry_sampling_includes_relay_wall": False,
+            "account_first_and_last_bounces": account,
+            "temporal_filter": "box",
+        },
+        # hidden target: unit rectangle at z=1 facing the wall (normal -z)
+        "hidden-target": {
+            "type": "rectangle",
+            "to_world": {
+                "translate": [0.0, 0.0, 1.0],
+                "rotate": {"axis": [0, 1, 0], "angle": 180},
+                "scale": 0.5,
+            },
+            "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}},
+        },
+        "laser": {
+            "type": "projector",
+            "to_world": {"translate": [-0.5, 0.0, 0.25]},
+            "irradiance": {"type": "rgb", "value": [1.0, 1.0, 1.0]},
+            "fov": 0.2,
+        },
+        # relay wall: [-1,1]^2 rectangle at z=0, normal +z
+        "relay_wall": {
+            "type": "rectangle",
+            "bsdf": {"type": "diffuse", "reflectance": {"type": "rgb", "value": [1.0, 1.0, 1.0]}},
+            "nlos_sensor": {
+                "type": "nlos_capture_meter",
+                "sampler": {"type": "independent", "sample_count": spp,
+                            "seed": 0},
+                "sensor_origin": [-0.5, 0.0, 0.25],
+                "film": {
+                    "type": "transient_hdr_film",
+                    "width": sx,
+                    "height": sy,
+                    "temporal_bins": bins,
+                    "bin_width_opl": 0.02,
+                    "start_opl": 0.0,
+                },
+            },
+        },
+    }

@@ -1,17 +1,16 @@
 // Native runtime components for mitransient_tpu.
 //
 // The reference's native layer is the Mitsuba3/DrJit C++ stack (ray kernels,
-// loaders, schedulers — SURVEY.md section 2.2).  In the TPU-native design the
-// *compute* path is JAX/Pallas; the host-side runtime pieces that benefit
+// loaders, schedulers — SURVEY.md section 2.2).  Here the *compute* path is
+// JAX/Pallas; the host-side runtime pieces that benefit
 // from native code are implemented here and bound via ctypes
 // (mitransient_tpu/native.py):
 //
 //  * fast OBJ triangle-mesh parsing (large NLOS meshes; the Python parser is
 //    the fallback and the semantic reference)
-//  * median-split BVH construction producing flat arrays (node AABBs +
-//    topology) for the two-level intersection scheme that lifts the Pallas
-//    sweep's triangle cap — build is irregular pointer-chasing host work,
-//    exactly what should NOT run on the TPU.
+//  * median-split / binned-SAH BVH construction producing flat arrays (node
+//    AABBs + topology) for a future GPU traversal of large meshes — build
+//    is irregular pointer-chasing host work, best kept off the device.
 //
 // Build: g++ -O3 -shared -fPIC -o libmitr_native.so mitr_native.cpp
 #include <cstdint>
@@ -228,10 +227,8 @@ int64_t mitr_build_bvh(const float* v0, const float* e1, const float* e2,
 // as mitr_build_bvh.  16 centroid bins on each of the 3 axes; split cost is
 // the standard surface-area heuristic  SA_L*N_L + SA_R*N_R  (constant factors
 // cancel when comparing splits of the same node).  Falls back to a median
-// split when all centroids share a bin.  The consumer (ops/accel.py) cuts
-// the tree into <=1024-tri subtree chunks, so what SAH buys here is tight,
-// low-overlap subtree bounds near the chunk level — the per-ray candidate
-// count the TPU pass loop pays for.
+// split when all centroids share a bin.  SAH buys tight, low-overlap
+// subtree bounds: fewer candidate nodes per ray in a traversal.
 // ---------------------------------------------------------------------------
 
 static const int SAH_BINS = 16;

@@ -75,9 +75,8 @@ def volumetric():
 def nlos_single():
     """NLOS Z capture, laser + hidden-geometry sampling
     (transientnlospath.py semantics)."""
-    from test_nlos import nlos_scene
-
-    return _render(nlos_scene(sx=4, sy=4, bins=200), spp=16, seed=0)
+    return _render(mitr.utils.nlos_scene(sx=4, sy=4, bins=200), spp=16,
+                   seed=0)
 
 
 def phasor():

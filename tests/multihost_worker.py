@@ -2,7 +2,7 @@
 
 Each worker is one 'host': it initializes jax.distributed against the shared
 coordinator, contributes its local CPU devices to the global mesh, renders
-its spp shard, participates in the cross-process psum (the DCN code path),
+its spp shard, participates in the cross-process psum (the cross-host path),
 and writes the fully-replicated result to disk.
 
 Usage: python multihost_worker.py <proc_id> <nproc> <port> <outfile>

@@ -1,126 +1,15 @@
-"""Large-scene acceleration structure (ops/accel.py + ops/bvh_pallas.py).
-
-The reference delegates big-mesh ray tracing to Embree/OptiX BVHs (e.g. the
-262k-triangle staircase scene, examples/diff-transient/staircase/scene.xml);
-here the binned-pass structure replaces them.  Validated three ways against
-the brute-force sweep: the numpy reference walk, the Pallas kernels in
-interpreter mode, and the scene-level dispatch.
-"""
-import jax.numpy as jnp
+"""Large meshes: scenes beyond a few thousand triangles use the same
+brute-force triangle sweep as the canonical small scenes (the reference
+hands them to Embree/OptiX BVHs; a GPU BVH traversal is future work)."""
 import numpy as np
-import pytest
-
-from mitransient_tpu.ops import accel as A
-from mitransient_tpu.ops import bvh_pallas as BP
-from mitransient_tpu.ops.intersect import intersect_soup, ray_test_soup
-
-
-def _soup(n_clusters=6, tris_per=200, seed=0):
-    rng = np.random.RandomState(seed)
-    centers = rng.uniform(-8, 8, (n_clusters, 3))
-    v0 = np.concatenate(
-        [c + rng.uniform(-0.9, 0.9, (tris_per, 3)) for c in centers]
-    ).astype(np.float32)
-    e1 = rng.uniform(-0.5, 0.5, v0.shape).astype(np.float32)
-    e2 = rng.uniform(-0.5, 0.5, v0.shape).astype(np.float32)
-    return v0, e1, e2
-
-
-def _rays(n, seed=1):
-    rng = np.random.RandomState(seed)
-    o = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return o, d
-
-
-def _brute(v0, e1, e2, o, d, maxt, act):
-    t, p, _u, _v = intersect_soup(
-        jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2),
-        jnp.asarray(o), jnp.asarray(d), jnp.asarray(maxt), jnp.asarray(act))
-    return np.asarray(t), np.asarray(p)
-
-
-def _same_hits(t_ref, t_got, rel=1e-3):
-    fin = np.isfinite(t_ref)
-    if not (fin == np.isfinite(t_got)).all():
-        return False
-    return np.allclose(t_ref[fin], t_got[fin], rtol=rel, atol=1e-4)
-
-
-def test_builder_pages_roundtrip():
-    v0, e1, e2 = _soup(2, 100)
-    acc = A.build_accel(v0, e1, e2)
-    pages = np.asarray(acc.pages)
-    # page capacity is per-accel (subtree chunks pad to a common cap)
-    tri16 = pages.reshape(pages.shape[0] * pages.shape[1] * 8, 16)
-    prim = tri16[:, 9].astype(np.int64)
-    real = prim >= 0
-    assert real.sum() == v0.shape[0]
-    # every triangle appears exactly once
-    assert sorted(prim[real]) == list(range(v0.shape[0]))
-    # Woop records: A maps (e1, e2, n) to the unit frame and c = A @ v0,
-    # so A @ (v0 + e1) - c = x-hat and A @ (v0 + e2) - c = y-hat
-    a = tri16[real, 0:9].reshape(-1, 3, 3).astype(np.float64)
-    c = tri16[real, 10:13].astype(np.float64)
-    p = prim[real]
-    np.testing.assert_allclose(
-        np.einsum("mij,mj->mi", a, v0[p]) - c, 0.0, atol=1e-4)
-    np.testing.assert_allclose(
-        np.einsum("mij,mj->mi", a, (v0 + e1)[p]) - c,
-        np.tile([1.0, 0, 0], (real.sum(), 1)), atol=1e-3)
-    np.testing.assert_allclose(
-        np.einsum("mij,mj->mi", a, (v0 + e2)[p]) - c,
-        np.tile([0.0, 1, 0], (real.sum(), 1)), atol=1e-3)
-
-
-def test_reference_walk_matches_brute_force():
-    v0, e1, e2 = _soup()
-    acc = A.build_accel(v0, e1, e2)
-    o, d = _rays(200)
-    maxt = np.full(200, np.inf, np.float32)
-    maxt[:40] = np.random.RandomState(3).uniform(2, 20, 40)
-    bt, bp = _brute(v0, e1, e2, o, d, maxt, np.ones(200, bool))
-    rt, rp = A.closest_hit_reference(acc, o, d, maxt)
-    assert _same_hits(bt, rt)
-
-
-def test_pallas_closest_hit_interpret():
-    v0, e1, e2 = _soup(4, 150)
-    acc = A.build_accel(v0, e1, e2)
-    n = 300
-    o, d = _rays(n, seed=5)
-    maxt = np.full(n, np.inf, np.float32)
-    act = np.ones(n, bool)
-    act[::13] = False
-    bt, bp = _brute(v0, e1, e2, o, d, maxt, act)
-    pt, pp = BP.closest_hit_bvh(acc, jnp.asarray(o), jnp.asarray(d),
-                                jnp.asarray(maxt), jnp.asarray(act),
-                                interpret=True)
-    assert _same_hits(bt, np.asarray(pt))
-
-
-def test_pallas_ray_test_interpret():
-    v0, e1, e2 = _soup(4, 150)
-    acc = A.build_accel(v0, e1, e2)
-    n = 300
-    o, d = _rays(n, seed=7)
-    maxt = np.full(n, 18.0, np.float32)
-    act = np.ones(n, bool)
-    occ = BP.ray_test_bvh(acc, jnp.asarray(o), jnp.asarray(d),
-                          jnp.asarray(maxt), jnp.asarray(act),
-                          interpret=True)
-    exp = np.asarray(ray_test_soup(
-        jnp.asarray(v0), jnp.asarray(e1), jnp.asarray(e2),
-        jnp.asarray(o), jnp.asarray(d), jnp.asarray(maxt),
-        jnp.asarray(act)))
-    np.testing.assert_array_equal(np.asarray(occ), exp)
 
 
 def test_scene_builds_accel_above_threshold():
+    """An 8192-triangle mesh renders through the same triangle sweep as the
+    small scenes: finite, non-zero output."""
     import mitransient_tpu as mitr
 
-    # a finely-subdivided quad -> > ACCEL_MIN_TRIS triangles
+    # a finely-subdivided quad -> 8192 triangles
     n = 64
     xs = np.linspace(-1, 1, n + 1)
     X, Y = np.meshgrid(xs, xs, indexing="ij")
@@ -158,101 +47,7 @@ def test_scene_builds_accel_above_threshold():
                      "bin_width_opl": 0.8},
         },
     })
-    assert sc.data.tri.v0.shape[0] > A.ACCEL_MIN_TRIS
-    assert sc.data.accel is not None
-    # CPU path ignores the accel (jnp sweep); render must still work
-    s, t = __import__("mitransient_tpu").render(sc, spp=2, seed=0)
+    assert sc.data.tri.v0.shape[0] == 2 * n * n + 2  # mesh + light quad
+    s, t = mitr.render(sc, spp=2, seed=0)
     assert np.isfinite(np.asarray(s)).all()
     assert float(np.asarray(s).max()) > 0.0
-
-
-def test_phantom_pad_chunks_near_origin():
-    """Pad chunks (fill min=+1/max=-1) must not act as a hittable [-1,1]^3
-    box at the origin: geometry far from the origin, rays shot THROUGH the
-    origin region, chunk count not a multiple of the pad block."""
-    rng = np.random.RandomState(7)
-    # ~3 chunks (1536 tris) of geometry centered at x ~ +10, away from 0
-    v0 = (np.array([10.0, 0.0, 0.0]) +
-          rng.uniform(-2, 2, (3 * A.CHUNK_TRIS, 3))).astype(np.float32)
-    e1 = rng.uniform(-0.3, 0.3, v0.shape).astype(np.float32)
-    e2 = rng.uniform(-0.3, 0.3, v0.shape).astype(np.float32)
-    acc = A.build_accel(v0, e1, e2)
-    assert acc.pages.shape[0] % A.SUPER_CHUNKS != 0  # pad chunks exist
-    n = 512
-    o = rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32)
-    o[:, 0] = -5.0  # every ray crosses the phantom box around the origin
-    d = (np.array([10.0, 0.0, 0.0]) +
-         rng.uniform(-2, 2, (n, 3)) - o).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    maxt = np.full(n, np.inf, np.float32)
-    act = np.ones(n, bool)
-    t_ref, p_ref = _brute(v0, e1, e2, o, d, maxt, act)
-    t, p = BP.closest_hit_bvh(acc, jnp.asarray(o), jnp.asarray(d),
-                              jnp.asarray(maxt), jnp.asarray(act),
-                              interpret=True)
-    assert _same_hits(t_ref, np.asarray(t))
-    np.testing.assert_array_equal(p_ref, np.asarray(p))
-    occ_ref = np.isfinite(t_ref)
-    occ = BP.ray_test_bvh(acc, jnp.asarray(o), jnp.asarray(d),
-                          jnp.asarray(maxt), jnp.asarray(act),
-                          interpret=True)
-    np.testing.assert_array_equal(occ_ref, np.asarray(occ))
-
-
-def test_regen_shadow_pipeline_matches_unpipelined():
-    """The shadow-ray pipelining in the regen loop (bounce k's NEE
-    visibility resolved inside bounce k+1's query, path_regen.py) must be
-    estimator-IDENTICAL: same RNG stream, same contributions, only the
-    film/steady accumulation order differs.  Render the accel test scene
-    once as-is (accel present -> pipelined) and once with the accel
-    stripped (-> in-bounce ray_test), same seed; images must agree to
-    float-sum tolerance."""
-    import mitransient_tpu as mitr
-    from mitransient_tpu.render import render
-
-    n = 64
-    xs = np.linspace(-1, 1, n + 1)
-    X, Y = np.meshgrid(xs, xs, indexing="ij")
-    P = np.stack([X, Y, np.zeros_like(X)], -1).reshape(-1, 3)
-
-    def vid(i, j):
-        return i * (n + 1) + j
-
-    faces = []
-    for i in range(n):
-        for j in range(n):
-            faces.append([vid(i, j), vid(i + 1, j), vid(i, j + 1)])
-            faces.append([vid(i + 1, j), vid(i + 1, j + 1), vid(i, j + 1)])
-    d = {
-        "type": "scene",
-        "integrator": {"type": "transient_path", "max_depth": 4},
-        "mesh": {
-            "type": "mesh", "vertices": P.astype(np.float32),
-            "faces": np.asarray(faces, np.int32),
-            "bsdf": {"type": "diffuse", "reflectance": 0.6},
-        },
-        "light": {
-            "type": "rectangle",
-            "to_world": {"translate": [0, 0, 2],
-                         "scale": [0.3, 0.3, 1.0]},
-            "emitter": {"type": "area", "radiance": 10.0},
-        },
-        "sensor": {
-            "type": "perspective", "fov": 45,
-            "to_world": {"look_at": {"origin": [0, 0, 3],
-                                     "target": [0, 0, 0],
-                                     "up": [0, 1, 0]}},
-            "film": {"type": "transient_hdr_film", "width": 8, "height": 8,
-                     "temporal_bins": 16, "start_opl": 0.0,
-                     "bin_width_opl": 0.8},
-        },
-    }
-    sc = mitr.load_dict(d)
-    assert sc.data.accel is not None
-    s_pipe, t_pipe = render(sc, spp=8, seed=3, regenerate=True)
-    sc.data = sc.data._replace(accel=None)  # plain Scene object attribute
-    s_ref, t_ref = render(sc, spp=8, seed=3, regenerate=True)
-    np.testing.assert_allclose(np.asarray(s_pipe), np.asarray(s_ref),
-                               rtol=2e-5, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(t_pipe), np.asarray(t_ref),
-                               rtol=2e-5, atol=1e-6)

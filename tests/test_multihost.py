@@ -1,11 +1,11 @@
-"""Multi-host (multi-process) SPMD correctness (SURVEY.md section 2.3 'DCN
-across hosts'; BASELINE '>=90% rays/s scaling at 2 hosts').
+"""Multi-host (multi-process) SPMD correctness (SURVEY.md section 2.3
+'across hosts'; BASELINE '>=90% rays/s scaling at 2 hosts').
 
-Real 2-host hardware is not available here, so the DCN code path is proven
-the way JAX itself tests it: two OS processes, each owning 2 virtual CPU
+Real 2-host hardware is not available to the tests, so the cross-host path
+is proven the way JAX itself tests it: two OS processes, each owning 2 virtual CPU
 devices, joined by ``jax.distributed`` + gloo collectives into one 4-device
 mesh.  The psum of film partials and parameter gradients crosses the process
-boundary — the exact program that runs over DCN on a TPU pod.
+boundary — the same program that runs across hosts.
 
 Determinism contract under test: sample streams are keyed by *global* device
 index, so the 2-process x 2-device render must equal the 1-process x
@@ -113,7 +113,7 @@ def test_multihost_equals_single_process(multihost_outputs):
 def test_scaling_efficiency_measurable():
     """The scaling harness itself: render the same global spp on 1 vs 4
     devices and verify the per-pass structure divides the work (ray counts
-    equal), which is what makes >=90% scaling achievable on real ICI/DCN —
+    equal), which is what makes >=90% scaling achievable on a real mesh —
     the arithmetic is identical, only the all-reduce is added."""
     scene = mitr.load_dict(mitr.cornell_box())
     _s1, _t1, st1 = render_sharded(scene, make_mesh(1), spp=32, seed=0,
